@@ -20,7 +20,7 @@ jax.config.update("jax_platforms", "cpu")
 
 
 def main() -> None:
-    from vdf_tpu.parallel import distributed
+    from vdf_nova.parallel import distributed
 
     distributed.initialize(
         coordinator=os.environ["VDF_COORD"],
@@ -31,11 +31,11 @@ def main() -> None:
     assert n_dev == 8, f"expected 8 global devices, got {n_dev}"
     mesh = distributed.global_mesh()
 
-    from vdf_tpu.fields import get_field
-    from vdf_tpu.parallel.mesh import sharded_matvec, sharded_msm
+    from vdf_nova.fields import get_field
+    from vdf_nova.parallel.mesh import sharded_matvec, sharded_msm
 
     # --- row-sharded R1CS matvec over the process mesh -----------------
-    from vdf_tpu.nova import public_params
+    from vdf_nova.nova import public_params
 
     pp = public_params(2)
     f = pp.field
@@ -52,9 +52,9 @@ def main() -> None:
     print("matvec ok", flush=True)
 
     # --- mesh-sharded Pippenger MSM over the process mesh --------------
-    from vdf_tpu.curves import get_curve
-    from vdf_tpu.curves.int_ops import IDENTITY, get_int_curve
-    from vdf_tpu.curves.point import Point, hash_to_curve_ints
+    from vdf_nova.curves import get_curve
+    from vdf_nova.curves.int_ops import IDENTITY, get_int_curve
+    from vdf_nova.curves.point import Point, hash_to_curve_ints
 
     curve = get_curve("pallas")
     int_curve = get_int_curve("pallas")

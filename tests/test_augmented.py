@@ -1,4 +1,4 @@
-"""Direct host <-> in-circuit transcript parity (VERDICT r2 item 7).
+"""Direct host <-> in-circuit transcript parity.
 
 The O(1) IVC verifier trusts that the host control plane (nova/ivc.py
 ``state_hash`` / ``fold_challenge`` over IntTranscript) and the
@@ -16,23 +16,23 @@ from __future__ import annotations
 
 import pytest
 
-from vdf_tpu.curves.point import hash_to_curve_ints
-from vdf_tpu.fields.int_field import get_int_field
-from vdf_tpu.nova.augmented import CHALLENGE_BITS, HASH_BITS, _truncated_squeeze
-from vdf_tpu.nova.gadgets.instance import (
+from vdf_nova.curves.point import hash_to_curve_ints
+from vdf_nova.fields.int_field import get_int_field
+from vdf_nova.nova.augmented import CHALLENGE_BITS, HASH_BITS, _truncated_squeeze
+from vdf_nova.nova.gadgets.instance import (
     AllocatedInstance,
     AllocatedRelaxedInstance,
     _alloc_num,
 )
-from vdf_tpu.nova.gadgets.ec import AllocatedPoint
-from vdf_tpu.nova.gadgets.sponge import TranscriptGadget
-from vdf_tpu.nova.ivc import (
+from vdf_nova.nova.gadgets.ec import AllocatedPoint
+from vdf_nova.nova.gadgets.sponge import TranscriptGadget
+from vdf_nova.nova.ivc import (
     HostInstance,
     HostRelaxedInstance,
     fold_challenge,
     state_hash,
 )
-from vdf_tpu.r1cs.witness import WitnessCS
+from vdf_nova.r1cs.witness import WitnessCS
 
 # Each side's circuit field and the curve whose points it handles
 # natively (the OTHER side's commitment curve).

@@ -1,4 +1,4 @@
-"""Checkpoint/resume tests (SURVEY §5 checkpoint row; VERDICT r2 item 10).
+"""Checkpoint/resume tests (SURVEY §5 checkpoint row).
 
 An interrupted IVC prover resumed from a checkpoint file must produce
 byte-identical proofs to an uninterrupted run; corrupted checkpoints
@@ -10,17 +10,17 @@ from __future__ import annotations
 
 import pytest
 
-from vdf_tpu.checkpoint import (
+from vdf_nova.checkpoint import (
     load_ivc,
     load_vdf,
     resume_ivc,
     save_ivc,
     save_vdf,
 )
-from vdf_tpu.errors import SerializationError
-from vdf_tpu.fields.int_field import get_int_field
-from vdf_tpu.nova.ivc import RecursiveIVC, ivc_public_params, ivc_verify
-from vdf_tpu.serialize import serialize_ivc_proof
+from vdf_nova.errors import SerializationError
+from vdf_nova.fields.int_field import get_int_field
+from vdf_nova.nova.ivc import RecursiveIVC, ivc_public_params, ivc_verify
+from vdf_nova.serialize import serialize_ivc_proof
 
 T, N = 2, 4
 
@@ -88,7 +88,7 @@ def test_ivc_checkpoint_is_verified_on_resume(pp, tmp_path):
 
 
 def test_vdf_checkpoint_roundtrip(tmp_path):
-    from vdf_tpu.minroot import Evaluation, pallas_vdf
+    from vdf_nova.minroot import Evaluation, pallas_vdf
 
     vdf = pallas_vdf()
     s0 = vdf.state_from_ints([5, 6], [0, 0], [0, 0])

@@ -10,11 +10,11 @@ import dataclasses
 
 import pytest
 
-from vdf_tpu.errors import SerializationError
-from vdf_tpu.fields.int_field import get_int_field
-from vdf_tpu.nova.compressed import ivc_compress, ivc_verify_compressed
-from vdf_tpu.nova.ivc import RecursiveIVC, ivc_public_params, ivc_verify
-from vdf_tpu.serialize import (
+from vdf_nova.errors import SerializationError
+from vdf_nova.fields.int_field import get_int_field
+from vdf_nova.nova.compressed import ivc_compress, ivc_verify_compressed
+from vdf_nova.nova.ivc import RecursiveIVC, ivc_public_params, ivc_verify
+from vdf_nova.serialize import (
     deserialize_compressed,
     deserialize_ivc_proof,
     serialize_compressed,

@@ -1,8 +1,8 @@
-"""ProverConfig (vdf_tpu/config.py): validation, env overrides, wiring."""
+"""ProverConfig (vdf_nova/config.py): validation, env overrides, wiring."""
 
 import pytest
 
-from vdf_tpu import ProverConfig
+from vdf_nova import ProverConfig
 
 
 def test_defaults_and_validation():
@@ -18,9 +18,9 @@ def test_defaults_and_validation():
 
 
 def test_from_env_overrides(monkeypatch):
-    monkeypatch.setenv("VDF_TPU_T", "7")
-    monkeypatch.setenv("VDF_TPU_ENGINE", "native")
-    monkeypatch.setenv("VDF_TPU_EVAL_MODE", "rtl_add_chain")
+    monkeypatch.setenv("VDF_NOVA_T", "7")
+    monkeypatch.setenv("VDF_NOVA_ENGINE", "native")
+    monkeypatch.setenv("VDF_NOVA_EVAL_MODE", "rtl_add_chain")
     cfg = ProverConfig.from_env()
     assert (cfg.t, cfg.engine, cfg.eval_mode) == (7, "native", "rtl_add_chain")
     # explicit overrides beat env
@@ -29,7 +29,7 @@ def test_from_env_overrides(monkeypatch):
 
 def test_prover_roundtrip_native():
     """Config -> prover -> one step -> verify (tiny, native engine)."""
-    from vdf_tpu.nova.ivc import ivc_verify
+    from vdf_nova.nova.ivc import ivc_verify
 
     cfg = ProverConfig(t=2, engine="native")
     vdf = cfg.vdf()

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from vdf_tpu.curves import Point, get_curve, hash_to_curve_ints, msm, sqrt_mod
-from vdf_tpu.fields import FP, FQ
+from vdf_nova.curves import Point, get_curve, hash_to_curve_ints, msm, sqrt_mod
+from vdf_nova.fields import FP, FQ
 
 
 def ec_add_int(p, q, mod):

@@ -11,8 +11,11 @@ import random
 import numpy as np
 import pytest
 
-from vdf_tpu.fields import FP, FQ, get_field, pow_fixed, program_cost
-from vdf_tpu.fields.ops import resolve
+import dataclasses
+
+from vdf_nova.fields import FP, FQ, Field, get_field, limbs_to_int, pow_fixed, program_cost
+from vdf_nova.fields.ops import resolve
+from vdf_nova.utils import backend
 import jax.numpy as jnp
 
 FIELDS = [("Fq", FQ), ("Fp", FP)]
@@ -106,13 +109,92 @@ class TestBasicOps:
         assert got == [(x * x) % P.modulus for x in a]
 
 
+class TestConvolution:
+    """The limb convolution is the exact product (mod 2^272 truncated)."""
+
+    @pytest.mark.parametrize("full", [True, False], ids=["full", "truncated"])
+    def test_conv_matches_ints(self, field_and_params, full):
+        f, _ = field_and_params
+        rng = np.random.default_rng(13)
+        a = rng.integers(0, 1 << 16, size=(64, 17), dtype=np.uint32)
+        b = rng.integers(0, 1 << 16, size=(64, 17), dtype=np.uint32)
+        a[0], b[0] = 0xFFFF, 0xFFFF  # largest limbs: the exactness bound
+        out = np.asarray(f._conv(jnp.asarray(a), jnp.asarray(b), full))
+        assert out.shape == (64, 35 if full else 17)
+        mod = 1 << (16 * out.shape[1])
+        for x, y, o in zip(a, b, out):
+            val = sum(int(v) << (16 * k) for k, v in enumerate(o))
+            assert val % mod == limbs_to_int(x) * limbs_to_int(y) % mod
+
+
+class TestMulChunking:
+    @pytest.mark.parametrize("rows", [64, 200])
+    def test_mul_across_chunk_boundary(self, field_and_params, monkeypatch, rows):
+        """Batches past the chunk size run as a lax.map over padded chunks
+        and still give every row's exact product."""
+        _, P = field_and_params
+        prof = backend.profile()
+        monkeypatch.setitem(
+            backend._PROFILES, prof.platform,
+            dataclasses.replace(prof, mul_chunk_rows=64),
+        )
+        f = Field(P)  # fresh jitted ops: they read the profile when traced
+        a = rand_ints(P.modulus, rows, seed=14)
+        b = rand_ints(P.modulus, rows, seed=15)
+        A = f.encode(a).reshape(rows // 8, 8, -1) if rows % 8 == 0 else f.encode(a)
+        got = f.decode(f.mul(A, f.encode(b).reshape(A.shape)).reshape(rows, -1))
+        assert got == [(x * y) % P.modulus for x, y in zip(a, b)]
+
+
+@pytest.mark.gpu
+class TestGpuProfile:
+    """Reproduce the GPU profile's choices on the card: the f32 limb
+    convolution at Precision.HIGHEST is exact at the prover's sizes, and
+    the unchunked multiply (mul_chunk_rows=None) is exact at 2^15, 2^17
+    and 2^20 rows."""
+
+    @staticmethod
+    def _sampled_rows(rows, sample=4096, seed=21):
+        rng = np.random.default_rng(seed)
+        a = rng.integers(0, 1 << 16, size=(rows, 17), dtype=np.uint32)
+        b = rng.integers(0, 1 << 16, size=(rows, 17), dtype=np.uint32)
+        for v in (a, b):  # below 2^255: the range mul's operands take
+            v[:, 15] &= 0x7FFF
+            v[:, 16] = 0
+        idx = np.sort(rng.choice(rows, size=min(sample, rows), replace=False))
+        return a, b, idx
+
+    @pytest.mark.parametrize("log_rows", [14, 18])
+    def test_conv_exact_at_size(self, field_and_params, log_rows):
+        f, _ = field_and_params
+        a, b, idx = self._sampled_rows(1 << log_rows)
+        out = np.asarray(f._conv(jnp.asarray(a), jnp.asarray(b), True))[idx]
+        for x, y, o in zip(a[idx], b[idx], out):
+            val = sum(int(v) << (16 * k) for k, v in enumerate(o))
+            assert val == limbs_to_int(x) * limbs_to_int(y)
+
+    @pytest.mark.parametrize("log_rows", [15, 17, 20])
+    def test_unchunked_mul_exact(self, field_and_params, log_rows):
+        f, P = field_and_params
+        assert backend.profile().mul_chunk_rows is None
+        p = P.modulus
+        r_inv = pow(1 << 272, -1, p)
+        a, b, idx = self._sampled_rows(1 << log_rows)
+        got = f.decode(f.mul(jnp.asarray(a), jnp.asarray(b))[jnp.asarray(idx)])
+        want = [
+            (limbs_to_int(x) * r_inv) * (limbs_to_int(y) * r_inv) % p
+            for x, y in zip(a[idx], b[idx])
+        ]
+        assert got == want
+
+
 class TestResolve:
     def test_resolve_redundant_limbs(self):
         """Parallel carry resolution matches exact integer semantics."""
         rng = np.random.default_rng(0)
         raw = rng.integers(0, 1 << 23, size=(50, 17), dtype=np.uint32)
         out = np.asarray(resolve(jnp.asarray(raw), 19))
-        from vdf_tpu.fields import limbs_to_int
+        from vdf_nova.fields import limbs_to_int
 
         for r, o in zip(raw, out):
             assert limbs_to_int(r) == limbs_to_int(o)
@@ -123,7 +205,7 @@ class TestResolve:
         v = np.full((1, 17), 0xFFFF, dtype=np.uint32)
         v[0, 0] += 1
         out = np.asarray(resolve(jnp.asarray(v), 18))
-        from vdf_tpu.fields import limbs_to_int
+        from vdf_nova.fields import limbs_to_int
 
         assert limbs_to_int(out[0]) == 1 << (16 * 17)
 

@@ -3,7 +3,7 @@
 
 The environment has no network and no Rust toolchain, so neptune /
 nova-snark golden vectors cannot be produced here (documented in
-docs/ROADMAP.md); instead THIS framework's own constants are frozen with
+docs/ARCHITECTURE.md); instead THIS framework's own constants are frozen with
 versioned digests so any accidental change to the Poseidon parameter
 generation, transcript framing, MDS derivation, or augmented-circuit
 shape breaks loudly.  Constants are a single swap point
@@ -14,8 +14,8 @@ import hashlib
 
 import pytest
 
-from vdf_tpu.poseidon.int_poseidon import IntTranscript, permute_ints
-from vdf_tpu.poseidon.params import generate_constants
+from vdf_nova.poseidon.int_poseidon import IntTranscript, permute_ints
+from vdf_nova.poseidon.params import generate_constants
 
 POSEIDON_DIGESTS = {
     ("Fp", 3): "01002673b0cbc3d30f06f36a46750ab0d7b2afaaeee8e8970b097131e7123b26",
@@ -43,10 +43,18 @@ TRANSCRIPT_CHALLENGES = {
 }
 
 # IVC public-params digests: pin the full augmented-circuit R1CS of both
-# curve sides (any constraint/coefficient change re-derives these).
+# curve sides and the commitment-key label (any constraint/coefficient
+# or key-domain change re-derives these).
 PP_DIGESTS = {
-    1: 0x34F586B8087A4070096681ADB0990F0E997385A5B1F2CABC56191E1B3990D54,
-    2: 0x620959CC73E436D4CFADB4A92ECD82205582E4B99C9A860B06D1013ACD261B,
+    1: 0x2B1BB4E4034251D7C3B6F2926D2E435419071150B6067E0240C206FCB169538,
+    2: 0x3FC4983066A7FC98AAC69DEB93C407E5283BC14E1479E1BD948200D8B3296F3,
+}
+
+# sha256 over the first 16 commitment-key generators (affine x, y as
+# 32-byte LE) of each curve: pins the key derivation under CK_LABEL.
+CK_DIGESTS = {
+    "pallas": "ff315305aeedc0305ae19b3c00c3abb2586c2e2ab6061a180ac863520b6d36c1",
+    "vesta": "3002a5d3e901084a04cfae4dc5652eb7f136cb6a75440c07dde1dceecb63f618",
 }
 
 
@@ -77,6 +85,27 @@ def test_transcript_challenges_frozen(field):
 
 @pytest.mark.parametrize("t", [1, 2])
 def test_ivc_params_digest_frozen(t):
-    from vdf_tpu.nova.ivc import ivc_public_params
+    from vdf_nova.nova.ivc import ivc_public_params
 
     assert ivc_public_params(t, engine="native").digest == PP_DIGESTS[t]
+
+
+@pytest.mark.parametrize("curve", list(CK_DIGESTS))
+def test_commitment_key_frozen(curve):
+    from vdf_nova.curves.point import hash_to_curve_ints
+    from vdf_nova.nova.pedersen import CK_LABEL
+
+    h = hashlib.sha256()
+    for x, y in hash_to_curve_ints(curve, 16, domain=CK_LABEL):
+        h.update(x.to_bytes(32, "little"))
+        h.update(y.to_bytes(32, "little"))
+    assert h.hexdigest() == CK_DIGESTS[curve]
+
+
+def test_ivc_params_digest_covers_key_label(monkeypatch):
+    from vdf_nova.nova import ivc
+
+    shape = ivc.ivc_public_params(1, engine="native").primary.shape
+    before = ivc._params_digest(shape)
+    monkeypatch.setattr(ivc, "CK_LABEL", b"another/ck")
+    assert ivc._params_digest(shape) != before

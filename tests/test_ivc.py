@@ -2,7 +2,7 @@
 
 Mirrors the reference RecursiveSNARK usage (test_nova_proof,
 /root/reference/src/nova/proof.rs:403-451) but against the augmented
-circuit + cycle engine (vdf_tpu/nova/ivc.py): the proof carries only the
+circuit + cycle engine (vdf_nova/nova/ivc.py): the proof carries only the
 two running relaxed instances + one strict instance regardless of the
 number of steps, and verification does no per-step replay.
 """
@@ -12,15 +12,15 @@ import dataclasses
 
 import pytest
 
-from vdf_tpu.fields.int_field import get_int_field
-from vdf_tpu.nova.ivc import (
+from vdf_nova.fields.int_field import get_int_field
+from vdf_nova.nova.ivc import (
     HostRelaxedInstance,
     IVCProof,
     RecursiveIVC,
     ivc_public_params,
     ivc_verify,
 )
-from vdf_tpu.utils import TEST_SEED, XorShiftRng, field_random
+from vdf_nova.utils import TEST_SEED, XorShiftRng, field_random
 
 T, N = 2, 3  # iters/step, steps
 
@@ -98,7 +98,7 @@ class TestIVC:
         consistent-looking hash: recomputing the hash over forged z breaks
         the SAT of the dangling instance."""
         pp, proof, z0, zn = proven
-        from vdf_tpu.nova.ivc import state_hash
+        from vdf_nova.nova.ivc import state_hash
 
         forged_zn = [7, 8, 9]
         bad = copy.copy(proof)

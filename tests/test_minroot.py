@@ -9,9 +9,9 @@ compute the same deterministic function of the same inputs.
 import numpy as np
 import pytest
 
-from vdf_tpu.fields import FP, FQ
-from vdf_tpu.minroot import EvalMode, Evaluation, MinRootVDF, State, pallas_vdf, vesta_vdf
-from vdf_tpu.utils import TEST_SEED, XorShiftRng, field_random
+from vdf_nova.fields import FP, FQ
+from vdf_nova.minroot import EvalMode, Evaluation, MinRootVDF, State, pallas_vdf, vesta_vdf
+from vdf_nova.utils import TEST_SEED, XorShiftRng, field_random
 
 VDFS = [("pallas", pallas_vdf, FQ), ("vesta", vesta_vdf, FP)]
 

@@ -6,8 +6,9 @@ framework's actual TP executables (``sharded_matvec``, ``sharded_msm``)
 over the process mesh and check results against exact host ints.
 
 This is the CI-runnable stand-in for the BASELINE "N>=2 hosts" axis —
-the same ``vdf_tpu.parallel.distributed`` entry drives real multi-host
-TPU slices (where the collectives ride ICI/DCN instead of loopback).
+the same ``vdf_nova.parallel.distributed`` entry drives real multi-host
+clusters (where the collectives ride NVLink/the network instead of
+loopback).
 """
 
 from __future__ import annotations

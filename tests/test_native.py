@@ -5,9 +5,9 @@ import random
 
 import pytest
 
-from vdf_tpu.fields import FP, FQ
+from vdf_nova.fields import FP, FQ
 
-native = pytest.importorskip("vdf_tpu.native")
+native = pytest.importorskip("vdf_nova.native")
 
 
 def oracle_eval(p, e, x, y, i, t):
@@ -27,7 +27,7 @@ class TestNativeVDF:
         assert native.minroot_inverse_native("Fq", *fwd, 12) == (55555, 0, 0)
 
     def test_native_matches_jax_path(self):
-        from vdf_tpu.minroot import pallas_vdf
+        from vdf_nova.minroot import pallas_vdf
 
         vdf = pallas_vdf()
         s = vdf.state_from_ints(424242, 17, 0)
@@ -39,7 +39,7 @@ class TestNativeVDF:
 
 class TestNativeMSM:
     def test_msm_matches_jax_msm(self):
-        from vdf_tpu.curves import get_curve, hash_to_curve_ints, msm
+        from vdf_nova.curves import get_curve, hash_to_curve_ints, msm
 
         c = get_curve("pallas")
         mod = FP.modulus
@@ -64,8 +64,8 @@ class TestNativeMSM:
     def test_fold_points_matches_int_curve(self, curve_name):
         """out[i] = a*P[i] + b*Q[i] (the IPA generator fold) vs the exact
         int-curve oracle."""
-        from vdf_tpu.curves import hash_to_curve_ints
-        from vdf_tpu.curves.int_ops import get_int_curve
+        from vdf_nova.curves import hash_to_curve_ints
+        from vdf_nova.curves.int_ops import get_int_curve
 
         ic = get_int_curve(curve_name)
         n = 5

@@ -4,14 +4,14 @@
 import numpy as np
 import pytest
 
-from vdf_tpu.fields import FQ
-from vdf_tpu.minroot import pallas_vdf
-from vdf_tpu.nova import (
+from vdf_nova.fields import FQ
+from vdf_nova.minroot import pallas_vdf
+from vdf_nova.nova import (
     NovaVDFProof,
     eval_and_make_circuits,
     public_params,
 )
-from vdf_tpu.utils import TEST_SEED, XorShiftRng, field_random
+from vdf_nova.utils import TEST_SEED, XorShiftRng, field_random
 
 
 @pytest.fixture(scope="module")
@@ -57,7 +57,7 @@ class TestNovaProof:
         f = pp.field
         snark = proof.snark
         w_bad = snark.W.w.at[0].set(f.encode(999))
-        from vdf_tpu.nova import RecursiveSNARK, RelaxedWitness
+        from vdf_nova.nova import RecursiveSNARK, RelaxedWitness
 
         tampered = NovaVDFProof(
             RecursiveSNARK(
@@ -69,7 +69,7 @@ class TestNovaProof:
 
     def test_tampered_instance_rejected(self, proven):
         pp, proof, z0, zi, t, n, _ = proven
-        from vdf_tpu.nova import R1CSInstance, RecursiveSNARK
+        from vdf_nova.nova import R1CSInstance, RecursiveSNARK
 
         snark = proof.snark
         inst = snark.step_instances
@@ -103,7 +103,7 @@ class TestStepCircuitSoundness:
 
     @staticmethod
     def _shape_and_inputs(t=1):
-        from vdf_tpu.nova.circuit import InverseMinRootCircuit
+        from vdf_nova.nova.circuit import InverseMinRootCircuit
 
         circ = InverseMinRootCircuit(t)
         shape = circ.shape(FQ.modulus).shape()

@@ -8,11 +8,11 @@ execution model (eval then fold per statement,
 
 import pytest
 
-from vdf_tpu.fields.int_field import get_int_field
-from vdf_tpu.minroot import pallas_vdf
-from vdf_tpu.nova.ivc import ivc_public_params, ivc_verify
-from vdf_tpu.nova.pipeline import VDFStatement, prove_stream
-from vdf_tpu.utils import TEST_SEED, XorShiftRng, field_random
+from vdf_nova.fields.int_field import get_int_field
+from vdf_nova.minroot import pallas_vdf
+from vdf_nova.nova.ivc import ivc_public_params, ivc_verify
+from vdf_nova.nova.pipeline import VDFStatement, prove_stream
+from vdf_nova.utils import TEST_SEED, XorShiftRng, field_random
 
 T = 2  # iters per IVC step
 
@@ -58,16 +58,16 @@ def test_pipelined_matches_sequential(pp, statements):
 def test_interleaved_chains_match_sequential(pp):
     """prove_interleaved is scheduling-only: each chain's proof equals
     the one a lone RecursiveIVC produces, and verifies."""
-    from vdf_tpu.nova.ivc import RecursiveIVC
-    from vdf_tpu.nova.pipeline import prove_interleaved
+    from vdf_nova.nova.ivc import RecursiveIVC
+    from vdf_nova.nova.pipeline import prove_interleaved
 
     rng = XorShiftRng(TEST_SEED)
     p = get_int_field("Fq").p
     num_steps = 3
     starts = [(field_random(rng, p), 0, 1) for _ in range(3)]
 
-    from vdf_tpu.minroot.vdf import jit_eval
-    from vdf_tpu.minroot import State
+    from vdf_nova.minroot.vdf import jit_eval
+    from vdf_nova.minroot import State
 
     f = pp.primary.field
     z0s = []

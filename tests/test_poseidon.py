@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from vdf_tpu.fields import FP, FQ, get_field
-from vdf_tpu.poseidon import (
+from vdf_nova.fields import FP, FQ, get_field
+from vdf_nova.poseidon import (
     FULL_ROUNDS,
     Transcript,
     generate_constants,

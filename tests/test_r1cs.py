@@ -8,10 +8,10 @@ exactly (host-int verification)."""
 import numpy as np
 import pytest
 
-from vdf_tpu.fields import FQ, get_field
-from vdf_tpu.minroot import pallas_vdf, State
-from vdf_tpu.nova.circuit import InverseMinRootCircuit
-from vdf_tpu.r1cs import ShapeCS, AllocatedNum, LinearCombination, ONE
+from vdf_nova.fields import FQ, get_field
+from vdf_nova.minroot import pallas_vdf, State
+from vdf_nova.nova.circuit import InverseMinRootCircuit
+from vdf_nova.r1cs import ShapeCS, AllocatedNum, LinearCombination, ONE
 
 
 def decode_col(f, arr):

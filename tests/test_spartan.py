@@ -2,14 +2,15 @@
 pipeline smoke (kept small: CPU-eager point ops dominate runtime)."""
 
 import random
+import types
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from vdf_tpu.fields import FQ, get_field
-from vdf_tpu.poseidon import Transcript
-from vdf_tpu.spartan import (
+from vdf_nova.fields import FQ, get_field
+from vdf_nova.poseidon import Transcript
+from vdf_nova.spartan import (
     eq_table,
     eval_univariate,
     evaluate,
@@ -102,8 +103,8 @@ class TestSumcheck:
 
 class TestIPA:
     def test_ipa_roundtrip_and_reject(self, f):
-        from vdf_tpu.curves import get_curve
-        from vdf_tpu.nova.pedersen import commitment_key
+        from vdf_nova.curves import get_curve
+        from vdf_nova.nova.pedersen import commitment_key
 
         c = get_curve("pallas")
         n = 4
@@ -130,9 +131,9 @@ class TestHostTier:
     proofs) on a tiny hand-built relaxed R1CS instance."""
 
     def _tiny_side(self):
-        from vdf_tpu.nova.ivc import HostRelaxedInstance, Side
-        from vdf_tpu.r1cs.cs import R1CSShape
-        from vdf_tpu.spartan.host import _ck_n, _msm_aff, host_ck
+        from vdf_nova.nova.ivc import HostRelaxedInstance, Side
+        from vdf_nova.r1cs.cs import R1CSShape
+        from vdf_nova.spartan.host import _ck_n, _msm_aff, host_ck
 
         p = FQ.modulus
         # 3 constraints over 4 aux + u + 2 inputs (z layout: W | u | X)
@@ -161,9 +162,32 @@ class TestHostTier:
         )
         return side, U, W, E
 
+    @staticmethod
+    def _spartan_ctx(side):
+        """The surface spartan_prove/verify read (field, curve_name,
+        dev_shape, nifs.ck), from an IVC Side."""
+        return types.SimpleNamespace(
+            field=side.field,
+            curve_name=side.curve_name,
+            dev_shape=side.dev_shape,
+            nifs=types.SimpleNamespace(ck=side.ck),
+        )
+
+    @staticmethod
+    def _encode_relaxed(side, U):
+        from vdf_nova.nova.nifs import RelaxedInstance
+
+        f = side.field
+        return RelaxedInstance(
+            side._encode_point(U.comm_w),
+            side._encode_point(U.comm_e),
+            f.encode([int(v) for v in U.X]),
+            f.encode(int(U.u)),
+        )
+
     def test_host_prove_verify_and_tamper(self):
-        from vdf_tpu.poseidon.int_poseidon import IntTranscript
-        from vdf_tpu.spartan.host import host_spartan_prove, host_spartan_verify
+        from vdf_nova.poseidon.int_poseidon import IntTranscript
+        from vdf_nova.spartan.host import host_spartan_prove, host_spartan_verify
 
         side, U, W, E = self._tiny_side()
         tr = lambda: IntTranscript("Fq")
@@ -179,31 +203,29 @@ class TestHostTier:
         assert not host_spartan_verify(side, U_bad, proof, tr())
 
     def test_cross_tier_host_prove_device_verify(self):
-        from vdf_tpu.nova.compressed import _SpartanCtx, _encode_relaxed
-        from vdf_tpu.poseidon.int_poseidon import IntTranscript
-        from vdf_tpu.spartan.host import host_spartan_prove, spartan_to_device
-        from vdf_tpu.spartan.snark import spartan_verify
+        from vdf_nova.poseidon.int_poseidon import IntTranscript
+        from vdf_nova.spartan.host import host_spartan_prove, spartan_to_device
+        from vdf_nova.spartan.snark import spartan_verify
 
         side, U, W, E = self._tiny_side()
         proof = host_spartan_prove(side, U, W, E, IntTranscript("Fq"))
         dev = spartan_to_device(side, proof)
         ok = spartan_verify(
-            _SpartanCtx.of(side), _encode_relaxed(side, U), dev, Transcript("Fq")
+            self._spartan_ctx(side), self._encode_relaxed(side, U), dev, Transcript("Fq")
         )
         assert bool(np.asarray(ok))
 
     def test_cross_tier_device_prove_host_verify(self):
-        from vdf_tpu.nova.compressed import _SpartanCtx, _encode_relaxed
-        from vdf_tpu.nova.nifs import RelaxedWitness
-        from vdf_tpu.poseidon.int_poseidon import IntTranscript
-        from vdf_tpu.spartan.host import host_spartan_verify, spartan_from_device
-        from vdf_tpu.spartan.snark import spartan_prove
+        from vdf_nova.nova.nifs import RelaxedWitness
+        from vdf_nova.poseidon.int_poseidon import IntTranscript
+        from vdf_nova.spartan.host import host_spartan_verify, spartan_from_device
+        from vdf_nova.spartan.snark import spartan_prove
 
         side, U, W, E = self._tiny_side()
         f = side.field
         dev = spartan_prove(
-            _SpartanCtx.of(side),
-            _encode_relaxed(side, U),
+            self._spartan_ctx(side),
+            self._encode_relaxed(side, U),
             RelaxedWitness(f.encode(W), f.encode(E)),
             Transcript("Fq"),
         )
@@ -211,16 +233,16 @@ class TestHostTier:
         assert host_spartan_verify(side, U, host, IntTranscript("Fq"))
 
     def test_ipa_cross_tier(self):
-        from vdf_tpu.curves import get_curve
-        from vdf_tpu.nova.pedersen import commitment_key
-        from vdf_tpu.poseidon.int_poseidon import IntTranscript
-        from vdf_tpu.spartan.host import (
+        from vdf_nova.curves import get_curve
+        from vdf_nova.nova.pedersen import commitment_key
+        from vdf_nova.poseidon.int_poseidon import IntTranscript
+        from vdf_nova.spartan.host import (
             host_ck,
             ipa_prove_ints,
             ipa_verify_ints,
             _msm_aff,
         )
-        from vdf_tpu.spartan.ipa import ipa_prove, ipa_verify
+        from vdf_nova.spartan.ipa import ipa_prove, ipa_verify
 
         f = get_field("Fq")
         c = get_curve("pallas")
@@ -236,7 +258,7 @@ class TestHostTier:
 
         # host prove -> device verify
         hp = ipa_prove_ints("pallas", q, gens_i, h_i, a, b, IntTranscript("Fq"))
-        from vdf_tpu.curves.point import Point
+        from vdf_nova.curves.point import Point
 
         def enc_pt(aff):
             if aff is None:
@@ -244,7 +266,7 @@ class TestHostTier:
             pt = c.from_affine_ints([aff])
             return Point(*(w[0] for w in pt))
 
-        from vdf_tpu.spartan.ipa import IPAProof
+        from vdf_nova.spartan.ipa import IPAProof
 
         dev_form = IPAProof(
             tuple(enc_pt(x) for x in hp.ls),
@@ -260,7 +282,7 @@ class TestHostTier:
         # device prove -> host verify
         dev = ipa_prove(f, c, ck.gens, ck.h, f.encode(a), f.encode(b), Transcript("Fq"))
         to_aff = lambda pt: c.to_affine_ints(Point(*(w[None] for w in pt)))[0]
-        from vdf_tpu.spartan.host import HostIPAProof
+        from vdf_nova.spartan.host import HostIPAProof
 
         host_form = HostIPAProof(
             tuple(to_aff(x) for x in dev.ls),
